@@ -13,35 +13,19 @@ host has 2 cores, so a literal 32-thread run here would UNDERstate the
 reference; the literal number is recorded alongside.
 
 Configs (BENCH detail.configs):
-  viral_flat_256     8192 x 2 kb reads, 256-genome flat index (viral-
-                     scale; the narrow p10x2 probe kernel) — the primary
-                     metric.  Small L2-resident tables are the CPU's
-                     best case and the scalar core's worst (see
-                     PHASES_r04.md)
-  flat_4096          4096 reads, 4096-genome flat index (wide rotate-
-                     free kernel; unit-run slice instead of the 7 ms
-                     segmentation matmul)
-  flat_16384         16384 reads, 16384-genome flat index — the
-                     RefSeq/GTDB-direction scaling regime where the
-                     CPU's cache-miss row scan degrades faster than the
-                     chip's streaming row XOR
+  viral_flat_256     8192 x 2 kb reads, 256-genome flat index — the
+                     primary metric
+  flat_4096          2048 reads, 4096-genome flat index (unit-run slice
+                     instead of the segmentation matmul)
+  flat_16384         2048 reads, 16384-genome flat index
   hier_1024          2048 reads, 1024 genomes, chopper-style tmax sweep
                      layout (multi-level HIXF, fused descent)
-  device_layout_1024 the same workload under --layout-cost device: one
-                     VMEM tile holds all 1024 bins, so the DP picks
-                     FLAT (one probe pass) — the tpu-first layout
   stress_identical   1024 reads over 64 near-identical genomes: top-k
                      truncation stress (build-time MinHash pre-seed)
-  detail.at_scale    summary of the committed 24.5k-genome / 1 GB-
-                     fingerprint demonstration (ATSCALE_r04.json):
-                     mixed-engine search at 6.4x the 32-thread proxy
 
-Robustness: TPU kernel compiles go through a shared compile service whose
-latency is erratic (observed 0.7s..500s for identical kernels).  Each
-config checks the remaining wall-clock budget and later configs are
-skipped (reported as such) rather than hanging the driver.  All shapes
-are deterministic, so one successful run warms the persistent cache for
-the next.
+Each config checks the remaining wall-clock budget and later configs are
+skipped (reported as such).  A device failure exits non-zero.  The card's
+name and power limit go to stderr and into the JSON line.
 """
 
 from __future__ import annotations
@@ -49,6 +33,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -100,15 +85,14 @@ def build_problem(n_species=256, genome_len=20000, n_reads=8192,
     return tmp, tsv, gdir, reads
 
 
-def _build_index(tsv, gdir, layout_mode="flat", tmax=0, threads=8,
-                 layout_cost="cpu"):
-    from taxor_tpu.apps.build import BuildConfig, run_build
+def _build_index(tsv, gdir, layout_mode="flat", tmax=0, threads=8):
+    from taxor_jax.apps.build import BuildConfig, run_build
 
     return run_build(BuildConfig(
         input_file=tsv, input_sequence_dir=gdir, output_filename="",
         kmer_size=22, syncmer_size=12, use_syncmer=True,
         layout_mode=layout_mode, tmax=tmax, layout_file="",
-        threads=threads, layout_cost=layout_cost,
+        threads=threads,
     ))
 
 
@@ -118,7 +102,7 @@ def _native_baseline(index, seqs, thresholder, sub=None):
     The shared bench host's single-thread rate swings +-35% run to run
     (noisy neighbors); take the BEST of 3 repetitions — the most
     favorable number for the reference, and far more stable."""
-    from taxor_tpu.native.baseline import baseline_search
+    from taxor_jax.native.baseline import baseline_search
 
     seqs = seqs if sub is None else seqs[:sub]
     r1 = 0.0
@@ -164,18 +148,16 @@ def _device_reads_per_s(index, seqs, thresholder, topk=16):
     import jax
     import jax.numpy as jnp
 
-    from taxor_tpu.device.hixf_search import DeviceHIXF
-    from taxor_tpu.hash import device_syncmer as dsync
-    from taxor_tpu.hash.device_syncmer import hash_cap
+    from taxor_jax.device.hixf_search import DeviceHIXF, _extract_kwargs
+    from taxor_jax.hash import device_syncmer as dsync
+    from taxor_jax.hash.device_syncmer import hash_cap
 
     scheme = index.scheme
     dhixf = DeviceHIXF(index.hixf)
     assert dhixf.e2e_capable(thresholder) and dsync.supports(scheme)
     L = dsync.pad_len_bucket(max(len(s) for s in seqs))
     packed, lengths = dsync.pack_reads(seqs, L)
-    from taxor_tpu.device.pallas_probe import _READ_TILE
-
-    rpad = (-len(seqs)) % _READ_TILE
+    rpad = (-len(seqs)) % 16
     if rpad:
         packed = np.pad(packed, ((0, rpad), (0, 0)))
         lengths = np.pad(lengths, (0, rpad))
@@ -197,22 +179,19 @@ def _device_reads_per_s(index, seqs, thresholder, topk=16):
     ln = jax.device_put(lengths.astype(np.int32))
 
     if len(dhixf.ixfs) == 1:
-        from taxor_tpu.device.e2e import fused_e2e_step
-        from taxor_tpu.device.pallas_probe import choose_bin_tile4
+        from taxor_jax.device.e2e import fused_e2e_step
 
         dixf = dhixf.ixfs[0]
-        users_dev = jnp.asarray(dixf.run_users.astype(np.int32))
-        kw = dict(k=scheme.kmer_size, s=scheme.syncmer_size,
-                  t=scheme.t_syncmer, hcap=hcap, topk=topk,
-                  bin_tile4=choose_bin_tile4(*dixf.fp.shape),
-                  use_p10=dixf.p10, prefix_runs=dixf.prefix_runs)
+        kw = dict(hcap=hcap, topk=topk, prefix_runs=dixf.prefix_runs,
+                  **_extract_kwargs(scheme))
         t = _rolled_timer(
             lambda p, l: fused_e2e_step(
-                dixf.fp, p, l, dixf.run_onehot, users_dev,
+                dixf.fp, p, l, dixf.run_onehot, dixf.run_users_dev,
                 dixf.seed_hi, dixf.seed_lo, dixf.bl_u32, **kw),
             pr, ln)
     else:
-        fn, fps, onehots = dhixf._hixf_e2e_fn(scheme, topk)
+        _, fps, onehots, _ = dhixf._device_groups()
+        fn = dhixf._step_fn(scheme, topk, hcap, False)
         tbl = jnp.asarray(dhixf._thr_table(thresholder, hcap))
         t = _rolled_timer(
             lambda p, l: fn(p, l, tbl, fps, onehots, hcap=hcap), pr, ln)
@@ -251,18 +230,17 @@ def _mixed_length_reads(tmp, seed=17):
 
 def parity_gate():
     """Real-backend output-parity gate: for each scheme/layout family,
-    run one small search twice — device engine (fused Pallas path,
-    non-interpret on TPU) vs host engine (numpy oracle) — and diff the
-    TSV byte-for-byte.  Covers flat + HIERARCHICAL (the grouped descent
+    run one small search twice — device engine (fused device path) vs
+    host engine (numpy oracle) — and diff the TSV byte-for-byte.  Covers flat + HIERARCHICAL (the grouped descent
     kernels), scaled, and mixed 500 b..4 kb read-length buckets
     (VERDICT r3 weak #2).  Returns {scheme_name: bool}; any False fails
     bench with exit code 1 (after the JSON line is printed)."""
     import io
     import os
 
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.device.hixf_search import DeviceHIXF
-    from taxor_tpu.search.pipeline import SearchConfig, search_single
+    from taxor_jax.apps.build import BuildConfig, run_build
+    from taxor_jax.device.hixf_search import DeviceHIXF
+    from taxor_jax.search.pipeline import SearchConfig, search_single
 
     tmp, tsv, gdir, reads_file = build_problem(
         n_species=32, genome_len=8000, n_reads=256, read_len=1000, seed=7)
@@ -332,8 +310,8 @@ def _pipeline_reads_per_s(index, reads_file, n_reads):
     pipeline.  The second run is reported (first warms compiles)."""
     import io
 
-    from taxor_tpu.device.hixf_search import DeviceHIXF
-    from taxor_tpu.search.pipeline import SearchConfig, search_single
+    from taxor_jax.device.hixf_search import DeviceHIXF
+    from taxor_jax.search.pipeline import SearchConfig, search_single
 
     dhixf = DeviceHIXF(index.hixf)
     cfg = SearchConfig(engine="device", batch_size=2048)
@@ -349,17 +327,15 @@ def _pipeline_reads_per_s(index, reads_file, n_reads):
 
 def bench_config(name, *, n_species, genome_len, n_reads, read_len,
                  layout_mode="flat", tmax=0, mutate=0.0, topk=16,
-                 baseline_sub=None, seed=0, layout_cost="cpu",
-                 measure_pipeline=False):
-    from taxor_tpu.io.fastx import read_all
-    from taxor_tpu.search.thresholds import Thresholder
+                 baseline_sub=None, seed=0, measure_pipeline=False):
+    from taxor_jax.io.fastx import read_all
+    from taxor_jax.search.thresholds import Thresholder
 
     t0 = time.perf_counter()
     tmp, tsv, gdir, reads_file = build_problem(
         n_species=n_species, genome_len=genome_len, n_reads=n_reads,
         read_len=read_len, seed=seed, mutate_from_first=mutate)
-    index = _build_index(tsv, gdir, layout_mode=layout_mode, tmax=tmax,
-                         layout_cost=layout_cost)
+    index = _build_index(tsv, gdir, layout_mode=layout_mode, tmax=tmax)
     t_build = time.perf_counter() - t0
     seqs = [r.seq for r in read_all(reads_file)]
     scheme = index.scheme
@@ -378,10 +354,6 @@ def bench_config(name, *, n_species, genome_len, n_reads, read_len,
                   baseline_32x_reads_per_s=round(baseline, 1),
                   baseline_32thread_on_this_host_reads_per_s=round(r32, 1))
 
-    # device phase in a worker thread so a runaway compile can't hang
-    # the driver
-    import threading
-
     dev: dict = {}
     # the index pre-seeds the top-k ladder from build-time homology
     # (apps/build._suggest_topk); the first dispatch starts there, like
@@ -390,27 +362,16 @@ def bench_config(name, *, n_species, genome_len, n_reads, read_len,
     topk_eff = max(topk, sugg)
     result["suggested_topk"] = sugg
 
-    def device_phase():
-        rps, t, fb, cls, dhixf = _device_reads_per_s(
-            index, seqs, thresholder, topk=topk_eff)
-        dev.update(rps=rps, t=t, fb=fb, cls=cls)
-        if mutate > 0.0 and topk_eff < 256:
-            # the pipeline's escalation ladder tops out at 256 candidate
-            # slots; with 64 co-equal genomes that is where truncation
-            # fallback disappears
-            rps2, t2, fb2, _, _ = _device_reads_per_s(
-                index, seqs, thresholder, topk=256)
-            dev.update(fb_k256=fb2, rps_k256=rps2)
-
-    worker = threading.Thread(target=device_phase, daemon=True)
-    worker.start()
-    worker.join(timeout=max(10.0, budget_left()))
-    if not dev:
-        log(f"bench[{name}]: device phase timed out")
-        result.update(device_timeout=True, vs_baseline=None)
-        return result, None
-
-    rps = dev["rps"]
+    rps, t, fb, cls, _ = _device_reads_per_s(
+        index, seqs, thresholder, topk=topk_eff)
+    dev.update(rps=rps, t=t, fb=fb, cls=cls)
+    if mutate > 0.0 and topk_eff < 256:
+        # the pipeline's escalation ladder tops out at 256 candidate
+        # slots; with 64 co-equal genomes that is where truncation
+        # fallback disappears
+        rps2, _, fb2, _, _ = _device_reads_per_s(
+            index, seqs, thresholder, topk=256)
+        dev.update(fb_k256=fb2, rps_k256=rps2)
     log(f"bench[{name}]: chip compute {dev['t']*1e3:.1f}ms/pass "
         f"({rps:.0f} reads/s, {rps/baseline:.2f}x baseline, "
         f"fallback {dev['fb']*100:.2f}%, classified {dev['cls']:.3f})")
@@ -426,27 +387,34 @@ def bench_config(name, *, n_species, genome_len, n_reads, read_len,
         result["host_fallback_fraction_k256"] = round(dev["fb_k256"], 5)
         result["device_compute_reads_per_s_k256"] = round(dev["rps_k256"], 1)
     if measure_pipeline and budget_left() > 180:
-        try:
-            prs = _pipeline_reads_per_s(index, reads_file, len(seqs))
-            result["full_pipeline_reads_per_s"] = round(prs, 1)
-            result["pipeline_vs_chip_compute"] = round(prs / rps, 3)
-            log(f"bench[{name}]: full pipeline {prs:.0f} reads/s "
-                f"({prs / rps:.2f}x of chip compute; includes decode, "
-                f"thresholds, fallback, TSV on {os.cpu_count()} host "
-                f"cores)")
-        except Exception as e:
-            log(f"bench[{name}]: pipeline measurement failed: {e!r}")
+        prs = _pipeline_reads_per_s(index, reads_file, len(seqs))
+        result["full_pipeline_reads_per_s"] = round(prs, 1)
+        result["pipeline_vs_chip_compute"] = round(prs / rps, 3)
+        log(f"bench[{name}]: full pipeline {prs:.0f} reads/s "
+            f"({prs / rps:.2f}x of chip compute; includes decode, "
+            f"thresholds, fallback, TSV on {os.cpu_count()} host "
+            f"cores)")
     return result, index
 
 
 def main():
     import jax
 
-    from taxor_tpu.hash import schemes as _schemes
+    from taxor_jax.hash import schemes as _schemes
 
+    from taxor_jax.utils.compile_cache import enable_compile_cache
+    from taxor_jax.utils.gpu import card_info
+
+    enable_compile_cache()
     _schemes.NUM_THREADS = 8
     backend = jax.default_backend()
-    log(f"bench: backend={backend}, budget {DEVICE_BUDGET_S:.0f}s")
+    dev0 = jax.devices()[0]
+    try:
+        card = card_info()
+    except (OSError, subprocess.SubprocessError) as e:
+        card = f"unavailable ({e!r})"
+    log(f"bench: backend={backend} device={dev0.device_kind} "
+        f"card={card!r}, budget {DEVICE_BUDGET_S:.0f}s")
 
     configs = []
     primary, _ = bench_config(
@@ -466,14 +434,6 @@ def main():
         dict(name="hier_1024", n_species=1024, genome_len=5000,
              n_reads=2048, read_len=2000, layout_mode="auto", tmax=64,
              baseline_sub=512),
-        # same reference set scored with the DEVICE layout cost model:
-        # one VMEM tile holds all 1024 bins, so the DP chooses FLAT (one
-        # probe pass) — the tpu-first answer to the hier_1024 workload.
-        # The baseline is the same 32x CPU proxy searching the layout IT
-        # would build (the hierarchical one is the CPU's optimum).
-        dict(name="device_layout_1024", n_species=1024, genome_len=5000,
-             n_reads=2048, read_len=2000, layout_mode="auto", tmax=64,
-             layout_cost="device", baseline_sub=512),
         dict(name="stress_identical", n_species=64, genome_len=20000,
              n_reads=1024, read_len=2000, mutate=0.005,
              baseline_sub=256),
@@ -482,12 +442,8 @@ def main():
             log(f"bench: skipping {spec['name']} (budget exhausted)")
             configs.append(dict(name=spec["name"], skipped=True))
             continue
-        try:
-            cfg, _ = bench_config(**spec)
-            configs.append(cfg)
-        except Exception as e:  # report partial results, never hang
-            log(f"bench[{spec['name']}]: failed: {e!r}")
-            configs.append(dict(name=spec["name"], error=repr(e)))
+        cfg, _ = bench_config(**spec)
+        configs.append(cfg)
 
     # real-backend device-vs-host TSV byte-parity per scheme family
     # (VERDICT r2 #5); a recorded False fails bench after printing
@@ -508,94 +464,33 @@ def main():
     log(f"bench[parity]: PARITY_RESULT={json.dumps(parity)} "
         f"parity_ok={parity_ok}")
 
-    value = primary.get("device_compute_reads_per_s")
-    if value is None:
-        result = {
-            "metric": "reads/s/chip classification throughput "
-                      "(k=22,s=12 syncmers, 256-genome index, 2kb reads)",
-            "value": primary["baseline_32x_reads_per_s"],
-            "unit": "reads/s",
-            "vs_baseline": 1.0,
-            "detail": {
-                "parity": parity,
-                "parity_ok": parity_ok,
-                "device_timeout": True,
-                "note": "TPU compile service exceeded the bench budget; "
-                        "reporting the 32-thread native C++ baseline",
-                "configs": configs,
-                "backend": backend,
-            },
-        }
-    else:
-        result = {
-            "metric": "reads/s/chip classification throughput "
-                      "(k=22,s=12 syncmers, 256-genome index, 2kb reads)",
-            "value": value,
-            "unit": "reads/s",
-            "vs_baseline": primary["vs_baseline"],
-            "detail": {
-                "parity": parity,
-                "parity_ok": parity_ok,
-                "projected_v5e8_reads_per_s": round(8 * value, 1),
-                "projected_v5e8_vs_baseline": round(
-                    8 * primary["vs_baseline"], 3),
-                "projection_note": "the BASELINE.md throughput target is "
-                    "defined on one v5e-8 (8 chips); this rig exposes one "
-                    "chip.  Replicated-index data parallelism is "
-                    "communication-free (each chip holds the full index "
-                    "and a read shard; zero collectives), so 8x chip "
-                    "compute is the projection — the sharded engine's "
-                    "8-virtual-device bit-equality tests and the "
-                    "dryrun_multichip compile check back the mechanism.",
-                "note": "value = sustained chip compute on the primary "
-                        "config (device-resident inputs). vs_baseline "
-                        "compares one chip against 32 x the single-thread "
-                        "native C++ reference-algorithm worker "
-                        "(native/ref_baseline.cpp) on the same inputs; "
-                        "see configs for the wide-index/hierarchical/"
-                        "stress shapes where the chip advantage scales.",
-                "baseline_proxy": "32-thread native C++ reference-"
-                                  "algorithm worker (32 x measured "
-                                  "single-thread rate)",
-                "configs": configs,
-                "backend": backend,
-                "host_cores": os.cpu_count(),
-            },
-        }
-    # at-scale demonstration summary (tools/at_scale_demo.py): the
-    # regime the reference's real databases live in, where the chip
-    # wins outright.  Prefer the freshest round's artifact.
-    here = os.path.dirname(os.path.abspath(__file__))
-    for atscale_name in ("ATSCALE_r05.json", "ATSCALE_r04.json"):
-        atscale_path = os.path.join(here, atscale_name)
-        if not os.path.exists(atscale_path):
-            continue
-        try:
-            a = json.load(open(atscale_path))
-            summ = {
-                "artifact": atscale_name,
-                "n_species": a["gen"]["n_species"],
-                "fingerprint_gb": a["build"]["fingerprint_gb"],
-                "baseline_32x_reads_per_s":
-                    a["search"]["baseline_32x_reads_per_s"],
-                "vs_baseline": a["search"]["vs_baseline"],
-            }
-            for key in ("device_reads_per_s", "full_pipeline_reads_per_s",
-                        "device_burst_reads_per_s", "cold_wall_s"):
-                if key in a["search"]:
-                    summ[key] = a["search"][key]
-            if "build_vs_baseline" in a.get("build_baseline", {}):
-                summ["build_vs_baseline"] = \
-                    a["build_baseline"]["build_vs_baseline"]
-            result["detail"]["at_scale"] = summ
-            break
-        except Exception:
-            pass
-    # trailing keys: survive the driver's stdout-tail truncation (the
-    # per-config results are a head-first list and BENCH_r03/r04 lost
-    # the primary evidence to the tail cut — VERDICT r4 weak #3).  The
-    # LAST keys carry every config's ratio, the pipeline numbers, the
-    # at-scale summary, and the parity dict.
+    value = primary["device_compute_reads_per_s"]
+    result = {
+        "metric": "reads/s/chip classification throughput "
+                  "(k=22,s=12 syncmers, 256-genome index, 2kb reads)",
+        "value": value,
+        "unit": "reads/s",
+        "vs_baseline": primary["vs_baseline"],
+        "device": {"platform": dev0.platform, "kind": dev0.device_kind,
+                   "count": len(jax.devices()), "card": card},
+        "detail": {
+            "parity": parity,
+            "parity_ok": parity_ok,
+            "note": "value = sustained device compute on the primary "
+                    "config (device-resident inputs). vs_baseline "
+                    "compares one device against 32 x the single-thread "
+                    "native C++ reference-algorithm worker "
+                    "(native/ref_baseline.cpp) on the same inputs.",
+            "baseline_proxy": "32-thread native C++ reference-"
+                              "algorithm worker (32 x measured "
+                              "single-thread rate)",
+            "configs": configs,
+            "backend": backend,
+            "host_cores": os.cpu_count(),
+        },
+    }
+    # trailing keys survive a tail-truncated stdout: the LAST keys carry
+    # every config's ratio, the pipeline numbers and the parity dict
     result["parity"] = parity
     result["parity_ok"] = parity_ok
     summary = {c["name"]: c.get("vs_baseline") for c in configs
@@ -609,8 +504,6 @@ def main():
                 result["pipeline_vs_chip_compute"] = \
                     c["pipeline_vs_chip_compute"]
             break
-    if "at_scale" in result.get("detail", {}):
-        result["at_scale_summary"] = result["detail"]["at_scale"]
     print(json.dumps(result))
     if not parity_ok:
         sys.exit(1)

@@ -6,11 +6,11 @@ benchmark's honesty."""
 import numpy as np
 import pytest
 
-from taxor_tpu.apps.build import BuildConfig, run_build
-from taxor_tpu.hash.schemes import search_hashes
-from taxor_tpu.native import get_lib
-from taxor_tpu.native.baseline import baseline_search
-from taxor_tpu.search.thresholds import Thresholder
+from taxor_jax.apps.build import BuildConfig, run_build
+from taxor_jax.hash.schemes import search_hashes
+from taxor_jax.native import get_lib
+from taxor_jax.native.baseline import baseline_search
+from taxor_jax.search.thresholds import Thresholder
 
 from .util import make_reads, make_ref_set
 
@@ -33,7 +33,7 @@ def built(request, tmp_path_factory):
         tmax=4 if request.param == "auto" else 0,
         layout_file="", threads=2,
     ))
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.io.fastx import read_all
     seqs = [r.seq for r in read_all(reads)]
     return index, seqs
 

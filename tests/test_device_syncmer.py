@@ -7,7 +7,7 @@ host scanner's emitted hash SET bit-for-bit on that alphabet."""
 import numpy as np
 import pytest
 
-from taxor_tpu.hash.device_syncmer import (
+from taxor_jax.hash.device_syncmer import (
     dedup_kmers,
     dedup_sorted,
     hash_cap,
@@ -17,8 +17,8 @@ from taxor_tpu.hash.device_syncmer import (
     syncmer_emit,
     syncmer_kmers,
 )
-from taxor_tpu.hash.schemes import HashScheme
-from taxor_tpu.hash.syncmer import syncmer_hashes_batch
+from taxor_jax.hash.schemes import HashScheme
+from taxor_jax.hash.syncmer import syncmer_hashes_batch
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -37,7 +37,7 @@ def _random_reads(rng, n, lo, hi, with_n=False):
 
 
 def _host_sets(reads, k, s, t):
-    from taxor_tpu.hash.encode import encode_dna4
+    from taxor_jax.hash.encode import encode_dna4
 
     L = max(len(r) for r in reads)
     codes = np.full((len(reads), L), 4, dtype=np.uint8)
@@ -78,8 +78,8 @@ def _device_sets_kmer_dedup(reads, k, s, t):
     order of operations)."""
     import jax.numpy as jnp
 
-    from taxor_tpu.hash.device_syncmer import emission_min_gap
-    from taxor_tpu.utils.u64jnp import wyhash64
+    from taxor_jax.hash.device_syncmer import emission_min_gap
+    from taxor_jax.utils.u64jnp import wyhash64
 
     L = pad_len_bucket(max(len(r) for r in reads))
     packed, lengths = pack_reads(reads, L)
@@ -201,11 +201,11 @@ class TestDeviceMinimizer:
     def test_matches_host_oracle(self, k, window):
         import jax
 
-        from taxor_tpu.hash.device_syncmer import (minimizer_kmers,
+        from taxor_jax.hash.device_syncmer import (minimizer_kmers,
                                                    pack_reads,
                                                    pad_len_bucket)
-        from taxor_tpu.hash.encode import encode_dna4
-        from taxor_tpu.hash.minimizer import minimiser_hashes
+        from taxor_jax.hash.encode import encode_dna4
+        from taxor_jax.hash.minimizer import minimiser_hashes
 
         rng = np.random.default_rng(17)
         seqs = [

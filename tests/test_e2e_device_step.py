@@ -1,19 +1,15 @@
-"""Fused on-device search step (device/e2e.py) vs the host oracle,
-Pallas kernel in interpreter mode so it runs on the CPU test mesh."""
+"""Fused on-device search step (device/e2e.py) vs the host oracle."""
 
 import numpy as np
 import pytest
 
-from taxor_tpu.device.e2e import fused_e2e_step
-from taxor_tpu.device.pallas_probe import (
-    choose_bin_tile4,
-    prepare_fingerprints,
-)
-from taxor_tpu.hash.device_syncmer import hash_cap, pack_reads, \
+from taxor_jax.device.e2e import fused_e2e_step
+from taxor_jax.device.probe import pad_fingerprints
+from taxor_jax.hash.device_syncmer import hash_cap, pack_reads, \
     pad_len_bucket
-from taxor_tpu.hash.schemes import search_hashes
-from taxor_tpu.search.pipeline import _pairs_from_e2e, _read_threshold
-from taxor_tpu.search.thresholds import Thresholder
+from taxor_jax.hash.schemes import search_hashes
+from taxor_jax.search.pipeline import _pairs_from_e2e, _read_threshold
+from taxor_jax.search.thresholds import Thresholder
 
 from .util import make_reads, make_ref_set
 
@@ -22,8 +18,8 @@ from .util import make_reads, make_ref_set
 def flat_setup(tmp_path_factory):
     import os
 
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.apps.build import BuildConfig, run_build
+    from taxor_jax.io.fastx import read_all
 
     tmp = str(tmp_path_factory.mktemp("e2e_dev"))
     rng = np.random.default_rng(11)
@@ -47,10 +43,10 @@ def test_fused_step_matches_host_oracle(flat_setup):
     scheme = index.scheme
     hixf = index.hixf
     ixf = hixf.ixfs[0]
-    fp = prepare_fingerprints(ixf.fingerprints)
+    fp = pad_fingerprints(ixf.fingerprints)
     starts, ends, users = hixf.runs_of_ixf(0)
     n_runs = starts.shape[0]
-    onehot = np.zeros((fp.shape[1] * 4, n_runs), dtype=np.float32)
+    onehot = np.zeros((fp.shape[1], n_runs), dtype=np.float32)
     for i, (a, b) in enumerate(zip(starts, ends)):
         onehot[a:b, i] = 1.0
 
@@ -71,8 +67,6 @@ def test_fused_step_matches_host_oracle(flat_setup):
         jnp.uint32(ixf.block_length),
         k=scheme.kmer_size, s=scheme.syncmer_size, t=scheme.t_syncmer,
         hcap=hcap, topk=16,
-        bin_tile4=choose_bin_tile4(*fp.shape),
-        interpret=True,
     ))[: len(reads)]
     vals, ubs, counts, n_emit = (out[:, :16], out[:, 16:32],
                                  out[:, 32], out[:, 33])
@@ -109,9 +103,9 @@ def test_hcap_overflow_triggers_host_fallback(flat_setup):
     scheme = index.scheme
     hixf = index.hixf
     ixf = hixf.ixfs[0]
-    fp = prepare_fingerprints(ixf.fingerprints)
+    fp = pad_fingerprints(ixf.fingerprints)
     starts, ends, users = hixf.runs_of_ixf(0)
-    onehot = np.zeros((fp.shape[1] * 4, starts.shape[0]), dtype=np.float32)
+    onehot = np.zeros((fp.shape[1], starts.shape[0]), dtype=np.float32)
     for i, (a, b) in enumerate(zip(starts, ends)):
         onehot[a:b, i] = 1.0
     L = pad_len_bucket(max(len(r) for r in reads))
@@ -119,16 +113,14 @@ def test_hcap_overflow_triggers_host_fallback(flat_setup):
     rpad = (-len(reads)) % 16
     packed = np.pad(packed, ((0, rpad), (0, 0)))
     lengths = np.pad(lengths, (0, rpad))
-    hcap = 8  # artificially tiny (one _HASH_UNROLL tile): every read
-    # overflows
+    hcap = 8  # artificially tiny: every read overflows
     out = np.asarray(fused_e2e_step(
         jnp.asarray(fp), jnp.asarray(packed), jnp.asarray(lengths),
         jnp.asarray(onehot), jnp.asarray(users.astype(np.int32)),
         jnp.uint32(ixf.seed >> 32), jnp.uint32(ixf.seed & 0xFFFFFFFF),
         jnp.uint32(ixf.block_length),
         k=scheme.kmer_size, s=scheme.syncmer_size, t=scheme.t_syncmer,
-        hcap=hcap, topk=16, bin_tile4=choose_bin_tile4(*fp.shape),
-        interpret=True,
+        hcap=hcap, topk=16,
     ))[: len(reads)]
     vals, ubs, counts, n_emit = (out[:, :16], out[:, 16:32],
                                  out[:, 32], out[:, 33])
@@ -174,17 +166,14 @@ def test_decode_ignores_batch_padding(flat_setup):
 
 
 def test_tie_rescue_on_device():
-    """Homopolymer-rich reads produce tied window minima, which the
-    fused extractor flags for fallback; the on-device exact-tracker
-    rescue (e2e._syncmer_hashes, VERDICT r3 item 7) must resolve them
-    bit-exactly WITHOUT the n_emit sentinel, matching the host oracle's
-    hash sets."""
+    """Homopolymer-rich reads produce tied window minima.  The device
+    extractor runs the exact stateful tracker, so tied reads need no
+    rescue and no host fallback: every read's hash set, unique count and
+    emission count must equal the host oracle's."""
     import jax.numpy as jnp
 
-    from taxor_tpu.device import e2e as de2e
-    from taxor_tpu.device.pallas_extract import (_TIE_SENTINEL,
-                                                syncmer_hashes_fused)
-    from taxor_tpu.hash.schemes import HashScheme, search_hashes
+    from taxor_jax.device.e2e import extract_hashes
+    from taxor_jax.hash.schemes import HashScheme, search_hashes
 
     rng = np.random.default_rng(99)
     k, s, t = 22, 12, 5
@@ -193,29 +182,18 @@ def test_tie_rescue_on_device():
     seqs = []
     for i in range(64):
         arr = bases[rng.integers(0, 4, 900)]
-        if i % 4 == 0:  # every 4th read is homopolymer-salted: flagged
-            # reads must fit the R/32 (floor 16) rescue bucket
+        if i % 4 == 0:  # every 4th read is homopolymer-salted
             for _ in range(2):
                 off = int(rng.integers(0, 860))
                 arr[off : off + 16] = bases[int(rng.integers(0, 4))]
         seqs.append(arr.tobytes())
     packed, lengths = pack_reads(seqs, L)
     hcap = hash_cap(L)
-    pr, ln = jnp.asarray(packed), jnp.asarray(lengths)
-
-    # the raw kernel must flag a healthy number of tied reads ...
-    _, _, _, _, ne_raw = syncmer_hashes_fused(pr, ln, k, s, t, hcap,
-                                              interpret=True)
-    n_flagged = int((np.asarray(ne_raw) == _TIE_SENTINEL).sum())
-    assert n_flagged >= 5, "tie workload did not produce tied windows"
-
-    assert n_flagged <= 16  # fits the rescue bucket by construction
-    # ... and the rescue path must clear ALL of them and match the host
-    # oracle
-    hi, lo, valid, n_unique, n_emit = de2e._syncmer_hashes(
-        pr, ln, k, s, t, hcap, True)
+    hi, lo, valid, n_unique, n_emit = extract_hashes(
+        jnp.asarray(packed), jnp.asarray(lengths), k, s, t, hcap,
+        "syncmer", 0, 0)
     n_emit = np.asarray(n_emit)
-    assert (n_emit != _TIE_SENTINEL).all()
+    assert (n_emit <= hcap).all()
     scheme = HashScheme(kmer_size=k, syncmer_size=s, t_syncmer=t,
                         use_syncmer=True)
     host = search_hashes(seqs, scheme)
@@ -224,9 +202,8 @@ def test_tie_rescue_on_device():
         want = np.sort(host[r])
         n = want.shape[0]
         assert int(np.asarray(n_unique)[r]) == n, r
-        got = (hi[r, :n].astype(np.uint64) << np.uint64(32)) \
-            | lo[r, :n].astype(np.uint64)
-        assert valid[r, :n].all()
+        got = (hi[r][valid[r]].astype(np.uint64) << np.uint64(32)) \
+            | lo[r][valid[r]].astype(np.uint64)
         # columns are sorted in canonical-k-mer space, not hash space
         np.testing.assert_array_equal(np.sort(got), want,
                                       err_msg=f"read {r}")

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from taxor_tpu.apps.build import BuildConfig, run_build
-from taxor_tpu.hixf.index import load_index, save_index
-from taxor_tpu.hixf.layout import flat_layout, parse_layout, write_layout
-from taxor_tpu.search.pipeline import SearchConfig, run_search
+from taxor_jax.apps.build import BuildConfig, run_build
+from taxor_jax.hixf.index import load_index, save_index
+from taxor_jax.hixf.layout import flat_layout, parse_layout, write_layout
+from taxor_jax.search.pipeline import SearchConfig, run_search
 
 from .util import make_reads, make_ref_set
 
@@ -295,7 +295,7 @@ class TestBuildArtifactsAndResume:
         taxor_build.cpp:437-442) + resume from an existing layout file."""
         import glob
 
-        from taxor_tpu.apps.build import BuildConfig, run_build
+        from taxor_jax.apps.build import BuildConfig, run_build
 
         tmp, tsv, gdir, genomes, reads = ref_set
         layout_file = str(tmp_path / "binning.out")
@@ -321,7 +321,7 @@ class TestBuildArtifactsAndResume:
             assert (a.fingerprints == b.fingerprints).all()
 
     def test_verbose_stats_prints_sweep(self, ref_set, tmp_path, capsys):
-        from taxor_tpu.apps.build import BuildConfig, run_build
+        from taxor_jax.apps.build import BuildConfig, run_build
 
         tmp, tsv, gdir, genomes, reads = ref_set
         run_build(BuildConfig(
@@ -363,8 +363,6 @@ class TestTopkEscalation:
         width (16 -> 64 -> 256) across batches and the output must stay
         identical to the host engine either way (truncated reads fall
         back to the exact host oracle)."""
-        from taxor_tpu.device import hixf_search as hs
-
         tmp = str(tmp_path)
         rng = np.random.default_rng(9)
         tsv, gdir, genomes = make_ref_set(tmp, rng, n_species=40,
@@ -388,19 +386,16 @@ class TestTopkEscalation:
             layout_mode="flat", layout_file="",
         ))
         idx_file = os.path.join(tmp, "ni.taxor.npz")
-        from taxor_tpu.hixf.index import save_index
+        from taxor_jax.hixf.index import save_index
         save_index(idx_file, index)
 
         host_tsv = os.path.join(tmp, "host.tsv")
         run_search(SearchConfig(index_file=idx_file, query_file=reads,
                                 report_file=host_tsv, engine="host"))
 
-        # CPU: force the fused pallas path in interpreter mode so the
-        # escalation logic actually runs; small batches create multiple
-        # chunks so the escalated width applies to later ones
-        monkeypatch.setattr(hs, "_default_engine", lambda: "pallas")
-        monkeypatch.setattr(hs.DeviceHIXF, "_interpret", True,
-                            raising=False)
+        # the fused device path runs the escalation logic; small
+        # batches create multiple chunks so the escalated width applies
+        # to later ones
         dev_tsv = os.path.join(tmp, "dev.tsv")
         run_search(SearchConfig(index_file=idx_file, query_file=reads,
                                 report_file=dev_tsv, engine="device",
@@ -416,7 +411,7 @@ class TestSuggestedTopk:
     def test_distinct_refs_stay_at_16(self, tmp_path):
         import numpy as np
 
-        from taxor_tpu.apps.build import BuildConfig, run_build
+        from taxor_jax.apps.build import BuildConfig, run_build
 
         from .util import make_ref_set
 
@@ -434,8 +429,8 @@ class TestSuggestedTopk:
 
         import numpy as np
 
-        from taxor_tpu.apps.build import BuildConfig, run_build
-        from taxor_tpu.hixf.index import load_index
+        from taxor_jax.apps.build import BuildConfig, run_build
+        from taxor_jax.hixf.index import load_index
 
         from .util import make_ref_set
 

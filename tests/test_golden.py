@@ -30,10 +30,10 @@ import os
 import numpy as np
 import pytest
 
-from taxor_tpu.hash.encode import encode_dna5
-from taxor_tpu.hash.syncmer import syncmer_hash_set, t_syncmer_default
-from taxor_tpu.ixf.xor_filter import IXF, compute_probes
-from taxor_tpu.search import thresholds as th
+from taxor_jax.hash.encode import encode_dna5
+from taxor_jax.hash.syncmer import syncmer_hash_set, t_syncmer_default
+from taxor_jax.ixf.xor_filter import IXF, compute_probes
+from taxor_jax.search import thresholds as th
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -62,8 +62,8 @@ def test_syncmer_t_default_matches_fixture_grid():
 
 
 def test_syncmer_native_matches_reference():
-    from taxor_tpu.hash.schemes import HashScheme, _syncmer_sets_native
-    from taxor_tpu.native import get_lib
+    from taxor_jax.hash.schemes import HashScheme, _syncmer_sets_native
+    from taxor_jax.native import get_lib
 
     lib = get_lib()
     if lib is None:
@@ -108,7 +108,7 @@ def test_host_probe_matches_reference_membership(case):
 def test_device_probe_matches_reference_membership(case):
     import jax.numpy as jnp
 
-    from taxor_tpu.device.probe import count_xla, pad_fingerprints
+    from taxor_jax.device.probe import count_xla, pad_fingerprints
 
     ixf = _ref_table_as_ixf(case)
     absent = np.array(case["absent"], dtype=np.uint64)

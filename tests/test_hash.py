@@ -4,26 +4,26 @@ minimizer semantics, scaling filter, N-handling quirks."""
 import numpy as np
 import pytest
 
-from taxor_tpu.hash.encode import (
+from taxor_jax.hash.encode import (
     build_record_seq,
     cut_out_n_stretches,
     encode_dna4,
     encode_dna5,
 )
-from taxor_tpu.hash.minimizer import (
+from taxor_jax.hash.minimizer import (
     adjust_seed,
     canonical_kmer_values,
     minimiser_emissions,
     minimiser_hashes,
 )
-from taxor_tpu.hash.schemes import HashScheme, scaling_filter, search_hashes
-from taxor_tpu.hash.syncmer import (
+from taxor_jax.hash.schemes import HashScheme, scaling_filter, search_hashes
+from taxor_jax.hash.syncmer import (
     syncmer_hash_set,
     syncmer_hashes_batch,
     syncmer_hashes_scalar,
     t_syncmer_default,
 )
-from taxor_tpu.utils.u64np import (
+from taxor_jax.utils.u64np import (
     fingerprint8,
     mix_split,
     mul_hi_lo,

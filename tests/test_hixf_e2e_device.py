@@ -1,24 +1,24 @@
 """Hierarchical fused device search step (make_hixf_e2e_grouped_fn) vs the host
-oracle on a multi-level HIXF, Pallas kernel in interpreter mode."""
+oracle on a multi-level HIXF."""
 
 import os
 
 import numpy as np
 import pytest
 
-from taxor_tpu.apps.build import BuildConfig, run_build
-from taxor_tpu.device.hixf_search import DeviceHIXF
-from taxor_tpu.hash import device_syncmer as dsync
-from taxor_tpu.hash.schemes import search_hashes
-from taxor_tpu.search.pipeline import _pairs_from_e2e, _read_threshold
-from taxor_tpu.search.thresholds import Thresholder
+from taxor_jax.apps.build import BuildConfig, run_build
+from taxor_jax.device.hixf_search import DeviceHIXF
+from taxor_jax.hash import device_syncmer as dsync
+from taxor_jax.hash.schemes import search_hashes
+from taxor_jax.search.pipeline import _pairs_from_e2e, _read_threshold
+from taxor_jax.search.thresholds import Thresholder
 
 from .util import make_reads, make_ref_set
 
 
 @pytest.fixture(scope="module")
 def hier_setup(tmp_path_factory):
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.io.fastx import read_all
 
     tmp = str(tmp_path_factory.mktemp("hier_dev"))
     rng = np.random.default_rng(21)
@@ -43,8 +43,7 @@ def test_hier_fused_matches_host(hier_setup, percentage):
     scheme = index.scheme
     thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
                                    0.04, percentage, scheme.use_syncmer)
-    dhixf = DeviceHIXF(index.hixf, engine="pallas")
-    dhixf._interpret = True  # Pallas interpreter: runs on the CPU mesh
+    dhixf = DeviceHIXF(index.hixf)
     assert dhixf.e2e_capable(thresholder)
     assert len(dhixf.ixfs) > 1
 
@@ -87,7 +86,7 @@ def test_thr_table_matches_host(hier_setup):
     for pct in (-1.0, 0.25, 1.0):
         th = Thresholder.make(scheme.kmer_size, scheme.window_size,
                               0.04, pct, scheme.use_syncmer)
-        dhixf = DeviceHIXF(index.hixf, engine="pallas")
+        dhixf = DeviceHIXF(index.hixf)
         tbl = dhixf._thr_table(th, 512)
         for c in (0, 1, 7, 100, 511, 512):
             assert tbl[c] == min(th.get(c, 0.0), 2**31 - 1)
@@ -99,7 +98,7 @@ def hier_fracminhash_setup(request, tmp_path_factory):
     default threshold model is fracminhash — length-dependent, so the
     fused descent runs in descend-all chain-min mode
     (e2e.make_hixf_e2e_grouped_fn docstring).  params: scaling factor."""
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.io.fastx import read_all
 
     scaling = request.param
     tmp = str(tmp_path_factory.mktemp("hier_fmh"))
@@ -130,8 +129,7 @@ def test_hier_fracminhash_descend_all_matches_host(hier_fracminhash_setup):
     thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
                                    0.04, -1.0, scheme.use_syncmer)
     assert thresholder.kind == "fracminhash"
-    dhixf = DeviceHIXF(index.hixf, engine="pallas")
-    dhixf._interpret = True
+    dhixf = DeviceHIXF(index.hixf)
     assert dhixf.e2e_capable(thresholder)
     assert len(dhixf.ixfs) > 1
 
@@ -172,7 +170,7 @@ def test_hier_fracminhash_descend_all_matches_host(hier_fracminhash_setup):
 def kmer_setup(request, tmp_path_factory):
     """Plain-k-mer (window == k, the reference default scheme) and
     windowed-minimizer indexes."""
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.io.fastx import read_all
 
     k, window = request.param
     tmp = str(tmp_path_factory.mktemp("kmer_dev"))
@@ -198,8 +196,7 @@ def test_minimizer_fused_matches_host(kmer_setup):
     assert dsync.supports_minimizer(scheme)
     thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
                                    0.04, -1.0, scheme.use_syncmer)
-    dhixf = DeviceHIXF(index.hixf, engine="pallas")
-    dhixf._interpret = True
+    dhixf = DeviceHIXF(index.hixf)
     assert dhixf.e2e_capable(thresholder)
 
     L = dsync.pad_len_bucket(max(len(r) for r in reads))
@@ -232,55 +229,81 @@ def test_minimizer_fused_matches_host(kmer_setup):
     assert n_hits >= len(reads) // 2
 
 
-def test_mixed_engine_group_matches_pallas(hier_setup):
-    """At-scale roots exceed the VMEM kernel budget and probe via the
-    XLA row gather inside the same fused graph; forcing the root group
-    onto the xla engine must be bit-identical to the all-pallas path."""
-    import jax.numpy as jnp
+def _final(prs):
+    """The reference's emission after the 0.8*max filter."""
+    if not prs:
+        return []
+    mx = max(c for _, c in prs)
+    return sorted((u, c) for u, c in prs if not float(c) < float(mx) * 0.8)
 
-    from taxor_tpu.device.e2e import make_hixf_e2e_grouped_fn
-    from taxor_tpu.device.pallas_probe import choose_bin_tile4
-    from taxor_tpu.hash.device_syncmer import hash_cap, pack_reads
 
+def _check_hashes_route(index, reads, thresholder, mesh_shape):
+    """hashes_async (host-extracted hashes through the tree step, on one
+    device or a reads x bins mesh) decoded like the pipeline does, vs
+    the host oracle."""
+    from taxor_jax.device.probe import pack_hash_lists
+    from taxor_jax.device.sharding import make_mesh
+
+    scheme = index.scheme
+    mesh = make_mesh(*mesh_shape) if mesh_shape else None
+    dhixf = DeviceHIXF(index.hixf, mesh=mesh)
+    host_hl = search_hashes(reads, scheme)
+    H = max(h.shape[0] for h in host_hl)
+    batch = pack_hash_lists(host_hl, 1 << (H - 1).bit_length())
+    res = dhixf.hashes_async(batch, len(reads), scheme, thresholder)()
+    sums = res[5] if len(res) == 6 else None
+    vals, users, counts, n_emit, hcap = res[:5]
+    pairs, hash_counts = _pairs_from_e2e(
+        vals, users, counts, n_emit, reads, index, scheme, thresholder,
+        index.hixf.user_bin_dfs_order(), hcap, sums=sums)
+    n_hits = 0
+    for r, seq in enumerate(reads):
+        hl = host_hl[r]
+        assert hash_counts[r] == hl.shape[0], r
+        thr = _read_threshold(thresholder, hl.shape[0], len(seq),
+                              scheme.kmer_size)
+        expect = index.hixf.membership(hl, thr)
+        assert _final(pairs[r]) == _final(expect), r
+        n_hits += bool(expect)
+    return n_hits
+
+
+@pytest.mark.parametrize("mesh_shape", [None, (2, 4)])
+@pytest.mark.parametrize("percentage", [-1.0, 0.3])
+def test_hier_hashes_route_matches_host(hier_setup, percentage,
+                                        mesh_shape):
+    """The host-extraction route on a tree (reads beyond the device
+    extractor's cap): host hashes descend through the same grouped tree
+    step, on one device and bin-sharded over a mesh."""
     index, reads = hier_setup
     scheme = index.scheme
     thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
-                                   0.04, -1.0, scheme.use_syncmer)
-    dhixf = DeviceHIXF(index.hixf, engine="pallas")
-    dhixf._interpret = True
-    L = dsync.pad_len_bucket(max(len(r) for r in reads))
-    packed, lengths = pack_reads(reads[:64], L)
-    hcap = hash_cap(L)
-    tbl = jnp.asarray(dhixf._thr_table(thresholder, hcap))
+                                   0.04, percentage, scheme.use_syncmer)
+    reads = reads[:60]
+    assert _check_hashes_route(index, reads, thresholder,
+                               mesh_shape) >= len(reads) // 2
 
-    outs = {}
-    for force_xla in (False, True):
-        # the forced-xla variant uses plain (non-block-padded) tables,
-        # as production does: a table too big for VMEM is never
-        # p10-eligible (its block length exceeds 10 bits)
-        host_groups, leaf_users = dhixf._build_probe_groups(
-            max_group_b4=128, p10_ok=not force_xla)
-        groups = []
-        fps = []
-        onehots = []
-        for gi, g in enumerate(host_groups):
-            eng = "xla" if (force_xla and gi == 0) else g["engine"]
-            fps.append(jnp.asarray(g["fp"]))
-            onehots.append(jnp.asarray(g["onehot"]))
-            groups.append(dict(
-                seed_hi=jnp.uint32(g["seed"] >> 32),
-                seed_lo=jnp.uint32(g["seed"] & 0xFFFFFFFF),
-                bl=jnp.uint32(g["bl"]), poskey=g["poskey"],
-                p10=g["p10"], engine=eng,
-                bt4=choose_bin_tile4(*g["fp"].shape),
-                members=[(m[0], m[1], m[2], m[3], jnp.asarray(m[4]))
-                         for m in g["members"]],
-            ))
-        fn = make_hixf_e2e_grouped_fn(
-            groups, jnp.asarray(leaf_users.astype(np.int32)),
-            k=scheme.kmer_size, s=scheme.syncmer_size,
-            t=scheme.t_syncmer, topk=16, interpret=True)
-        outs[force_xla] = np.asarray(fn(
-            jnp.asarray(packed), jnp.asarray(lengths.astype(np.int32)),
-            tbl, tuple(fps), tuple(onehots), hcap=hcap))
-    np.testing.assert_array_equal(outs[True], outs[False])
+
+@pytest.mark.parametrize("mesh_shape", [None, (1, 4)])
+def test_hier_hashes_route_descend_all_matches_host(hier_fracminhash_setup,
+                                                    mesh_shape):
+    """The host-hash tree step in descend-all chain-min mode
+    (fracminhash thresholds), one device and a mesh."""
+    index, reads = hier_fracminhash_setup
+    scheme = index.scheme
+    thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
+                                   0.04, -1.0, scheme.use_syncmer)
+    assert thresholder.kind == "fracminhash"
+    _check_hashes_route(index, reads[:60], thresholder, mesh_shape)
+
+
+def test_flat_hashes_route_on_mesh_matches_host(kmer_setup):
+    """A flat index over a mesh also takes host-extracted hashes through
+    the tree step (one group, every run a leaf)."""
+    index, reads = kmer_setup
+    scheme = index.scheme
+    thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
+                                   0.04, -1.0, scheme.use_syncmer)
+    assert len(index.hixf.ixfs) == 1
+    assert _check_hashes_route(index, reads[:48], thresholder,
+                               (2, 4)) >= 24

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from taxor_tpu.io.fastx import iter_fastx, iter_fastx_chunks, read_all
-from taxor_tpu.io.taxonomy import (
+from taxor_jax.io.fastx import iter_fastx, iter_fastx_chunks, read_all
+from taxor_jax.io.taxonomy import (
     parse_gtdb_taxonomy_file,
     parse_refseq_taxonomy_file,
 )
@@ -87,7 +87,7 @@ class TestTaxonomy:
 
 class TestMultiLineFastq:
     def test_wrapped_sequence_and_quality(self, tmp_path):
-        from taxor_tpu.io.fastx import read_all
+        from taxor_jax.io.fastx import read_all
 
         p = tmp_path / "w.fastq"
         # wrapped records; quality lines legitimately starting with '@'/'+'
@@ -101,7 +101,7 @@ class TestMultiLineFastq:
         assert recs[1].seq == b"TTTTGG"
 
     def test_single_line_fastq_still_works(self, tmp_path):
-        from taxor_tpu.io.fastx import read_all
+        from taxor_jax.io.fastx import read_all
 
         p = tmp_path / "s.fastq"
         p.write_text("@a\nACGT\n+\nIIII\n@b\nGGCC\n+\nIIII\n")

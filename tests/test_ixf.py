@@ -4,13 +4,13 @@ count semantics, retry-on-failure determinism, device probe parity."""
 import numpy as np
 import pytest
 
-from taxor_tpu.ixf.xor_filter import (
+from taxor_jax.ixf.xor_filter import (
     IXF,
     build_ixf,
     compute_probes,
     ixf_geometry,
 )
-from taxor_tpu.utils.u64np import XOR_SEED0
+from taxor_jax.utils.u64np import XOR_SEED0
 
 
 def rand_keys(rng, n):
@@ -108,7 +108,7 @@ class TestDeviceProbe:
     def test_count_xla_matches_oracle(self):
         import jax.numpy as jnp
 
-        from taxor_tpu.device.probe import count_xla, pad_fingerprints
+        from taxor_jax.device.probe import count_xla, pad_fingerprints
 
         rng = np.random.default_rng(8)
         nb = 5
@@ -151,13 +151,13 @@ def test_native_builder_matches_python():
     round-synchronous claim order, same duplicate-triple policy."""
     import pytest
 
-    from taxor_tpu.ixf.xor_filter import (
+    from taxor_jax.ixf.xor_filter import (
         _build_bins_native,
         _build_bins_python,
         ixf_geometry,
     )
-    from taxor_tpu.native import get_lib
-    from taxor_tpu.utils.u64np import XOR_SEED0
+    from taxor_jax.native import get_lib
+    from taxor_jax.utils.u64np import XOR_SEED0
 
     lib = get_lib()
     if lib is None or not hasattr(lib, "ixf_build_bins"):
@@ -183,7 +183,7 @@ def test_native_builder_matches_python():
                 assert fp_py.dtype == fp_nat.dtype
                 assert (fp_py == fp_nat).all(), f"cap={cap}"
                 break
-            from taxor_tpu.utils.u64np import murmur64
+            from taxor_jax.utils.u64np import murmur64
 
             seed = int(murmur64(np.uint64(seed)))
 

@@ -5,14 +5,14 @@ import os
 import numpy as np
 import pytest
 
-from taxor_tpu.hixf.binning import (
+from taxor_jax.hixf.binning import (
     _dp_layout,
     _Bin,
     compute_layout_from_hashes,
     make_sketch,
     next_multiple_of_64,
 )
-from taxor_tpu.hixf.hll import HyperLogLog, union_estimate
+from taxor_jax.hixf.hll import HyperLogLog, union_estimate
 
 
 class TestHLL:
@@ -106,10 +106,10 @@ class TestNativeDP:
     @pytest.mark.parametrize("n,tmax", [(30, 16), (100, 64), (257, 64),
                                         (64, 256)])
     def test_dp_matches_numpy_oracle(self, n, tmax):
-        from taxor_tpu.hixf.binning import (_dp_layout_native,
+        from taxor_jax.hixf.binning import (_dp_layout_native,
                                             _dp_layout_numpy,
                                             _union_band, MAX_MERGE)
-        from taxor_tpu.native import get_lib
+        from taxor_jax.native import get_lib
 
         lib = get_lib()
         if lib is None or not hasattr(lib, "layout_dp"):
@@ -125,8 +125,8 @@ class TestNativeDP:
         assert pl_c == pl_n
 
     def test_band_matches_numpy(self):
-        from taxor_tpu.hixf import binning as B
-        from taxor_tpu.native import get_lib
+        from taxor_jax.hixf import binning as B
+        from taxor_jax.native import get_lib
 
         if get_lib() is None:
             pytest.skip("native lib unavailable")
@@ -153,8 +153,8 @@ class TestNativeDP:
             assert (np.diff(row) >= 0).all()
 
     def test_rearrange_matches_numpy(self, monkeypatch):
-        from taxor_tpu.hixf import binning as B
-        from taxor_tpu.native import get_lib
+        from taxor_jax.hixf import binning as B
+        from taxor_jax.native import get_lib
 
         if get_lib() is None or not hasattr(get_lib(), "rearrange_chain"):
             pytest.skip("native lib unavailable")
@@ -171,7 +171,7 @@ class TestNativeDP:
         native_order = [b.filenames[0]
                         for b in B.rearrange_bins(list(bins))]
         monkeypatch.setattr(B, "get_lib", lambda: None, raising=False)
-        import taxor_tpu.native as N
+        import taxor_jax.native as N
 
         monkeypatch.setattr(N, "get_lib", lambda: None)
         numpy_order = [b.filenames[0]
@@ -205,8 +205,8 @@ class TestComputeLayout:
 
 class TestHierarchicalEndToEnd:
     def test_build_and_search_hierarchical(self, tmp_path):
-        from taxor_tpu.apps.build import BuildConfig, run_build
-        from taxor_tpu.search.pipeline import SearchConfig, run_search
+        from taxor_jax.apps.build import BuildConfig, run_build
+        from taxor_jax.search.pipeline import SearchConfig, run_search
 
         from .util import make_reads, make_ref_set
 
@@ -257,7 +257,7 @@ def test_layout_invariance_of_classification(tmp_path):
         os.path.abspath(__file__))))
     from tools.layout_invariance import classify_rows
 
-    from taxor_tpu.apps.build import BuildConfig, run_build
+    from taxor_jax.apps.build import BuildConfig, run_build
 
     from .util import make_reads, make_ref_set
 

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from taxor_tpu.hash.encode import encode_dna4
-from taxor_tpu.hash.schemes import HashScheme, _syncmer_sets_native
-from taxor_tpu.hash.syncmer import syncmer_hashes_scalar
-from taxor_tpu.native import get_lib
+from taxor_jax.hash.encode import encode_dna4
+from taxor_jax.hash.schemes import HashScheme, _syncmer_sets_native
+from taxor_jax.hash.syncmer import syncmer_hashes_scalar
+from taxor_jax.native import get_lib
 
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 

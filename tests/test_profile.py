@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from taxor_tpu.profile.profile import (
+from taxor_jax.profile.profile import (
     ProfileConfig,
     SearchResult,
     calculate_higher_rank_abundances,

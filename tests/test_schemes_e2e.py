@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from taxor_tpu.apps.build import BuildConfig, run_build
-from taxor_tpu.search.pipeline import SearchConfig, run_search
+from taxor_jax.apps.build import BuildConfig, run_build
+from taxor_jax.search.pipeline import SearchConfig, run_search
 
 from .util import make_reads, make_ref_set
 
@@ -102,7 +102,7 @@ class TestDeviceScaling:
     def test_scaling_threshold_is_exact_integer_form(self):
         """v <= T (integer) must equal double(v) <= double(UINT64_MAX)/s
         for every v — the reference's comparison (taxor_search.cpp:229)."""
-        from taxor_tpu.hash.schemes import scaling_threshold_u64
+        from taxor_jax.hash.schemes import scaling_threshold_u64
 
         rng = np.random.default_rng(3)
         for s in (2, 3, 7, 100, 1000):
@@ -123,14 +123,14 @@ class TestDeviceScaling:
         engine's emissions exactly (flat fused path)."""
         import os
 
-        from taxor_tpu.apps.build import BuildConfig, run_build
-        from taxor_tpu.device.hixf_search import DeviceHIXF
-        from taxor_tpu.hash import device_syncmer as dsync
-        from taxor_tpu.io.fastx import read_all
-        from taxor_tpu.hash.schemes import search_hashes
-        from taxor_tpu.search.pipeline import (_pairs_from_e2e,
+        from taxor_jax.apps.build import BuildConfig, run_build
+        from taxor_jax.device.hixf_search import DeviceHIXF
+        from taxor_jax.hash import device_syncmer as dsync
+        from taxor_jax.io.fastx import read_all
+        from taxor_jax.hash.schemes import search_hashes
+        from taxor_jax.search.pipeline import (_pairs_from_e2e,
                                                _read_threshold)
-        from taxor_tpu.search.thresholds import Thresholder
+        from taxor_jax.search.thresholds import Thresholder
 
         from .util import make_reads, make_ref_set
 
@@ -153,8 +153,7 @@ class TestDeviceScaling:
         thresholder = Thresholder.make(scheme.kmer_size,
                                        scheme.window_size, 0.04, -1.0,
                                        scheme.use_syncmer)
-        dhixf = DeviceHIXF(index.hixf, engine="pallas")
-        dhixf._interpret = True
+        dhixf = DeviceHIXF(index.hixf)
         reads = [r.seq for r in read_all(reads_file)]
         L = dsync.pad_len_bucket(max(len(r) for r in reads))
         packed, lengths = dsync.pack_reads(reads, L)

@@ -1,19 +1,15 @@
 """Full fused search step under shard_map (reads x bins mesh) must be
 bit-identical to the single-device fused step — the multi-chip
-configuration for indexes larger than one chip's HBM (SURVEY.md §2.3
+configuration for indexes larger than one card's memory (SURVEY.md §2.3
 mapping; BASELINE.md scaling points)."""
 
 import numpy as np
 import pytest
 
-from taxor_tpu.device.e2e import fused_e2e_step
-from taxor_tpu.device.pallas_probe import (
-    _READ_TILE,
-    choose_bin_tile4,
-    prepare_fingerprints,
-)
-from taxor_tpu.device.sharding import make_mesh, sharded_e2e_fn
-from taxor_tpu.hash.device_syncmer import (
+from taxor_jax.device.e2e import fused_e2e_step
+from taxor_jax.device.probe import LANE, pad_fingerprints
+from taxor_jax.device.sharding import make_mesh, sharded_e2e_fn
+from taxor_jax.hash.device_syncmer import (
     hash_cap,
     pack_reads,
     pad_len_bucket,
@@ -24,8 +20,8 @@ from .util import make_reads, make_ref_set
 
 @pytest.fixture(scope="module")
 def flat_index(tmp_path_factory):
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.apps.build import BuildConfig, run_build
+    from taxor_jax.io.fastx import read_all
 
     tmp = str(tmp_path_factory.mktemp("sharded_e2e"))
     rng = np.random.default_rng(3)
@@ -52,13 +48,10 @@ def test_sharded_e2e_matches_single_device(flat_index):
     n_bin_shards, n_read_shards = 4, 2
     mesh = make_mesh(n_read_shards, n_bin_shards)
 
-    # pad bins so the packed-word axis splits into full 128-lane tiles
-    # per bins shard
-    fp = prepare_fingerprints(ixf.fingerprints)  # [S1, B4]
-    B4 = 128 * n_bin_shards
-    fp = np.pad(fp, ((0, 0), (0, B4 - fp.shape[1])))
+    # pad bins so the bins axis splits into whole LANE tiles per shard
+    fp = pad_fingerprints(ixf.fingerprints, LANE * n_bin_shards)
     starts, ends, users = index.hixf.runs_of_ixf(0)
-    onehot = np.zeros((4 * B4, starts.shape[0]), dtype=np.float32)
+    onehot = np.zeros((fp.shape[1], starts.shape[0]), dtype=np.float32)
     for i, (a, b) in enumerate(zip(starts, ends)):
         onehot[a:b, i] = 1.0
     run_users = users.astype(np.int32)
@@ -66,7 +59,7 @@ def test_sharded_e2e_matches_single_device(flat_index):
     L = pad_len_bucket(max(len(r) for r in reads))
     packed, lengths = pack_reads(reads, L)
     R0 = len(reads)
-    Rpad = -R0 % (n_read_shards * n_bin_shards * _READ_TILE)
+    Rpad = -R0 % (n_read_shards * n_bin_shards * 16)
     packed = np.pad(packed, ((0, Rpad), (0, 0)))
     lengths = np.pad(lengths, (0, Rpad)).astype(np.int32)
     hcap = hash_cap(L)
@@ -80,13 +73,11 @@ def test_sharded_e2e_matches_single_device(flat_index):
     expect = np.asarray(fused_e2e_step(
         *args, k=scheme.kmer_size, s=scheme.syncmer_size,
         t=scheme.t_syncmer, hcap=hcap, topk=16,
-        bin_tile4=choose_bin_tile4(fp.shape[0], fp.shape[1]),
-        interpret=True,
     ))
 
     step = sharded_e2e_fn(mesh, k=scheme.kmer_size,
                           s=scheme.syncmer_size, t=scheme.t_syncmer,
-                          hcap=hcap, topk=16, interpret=True)
+                          hcap=hcap, topk=16)
     got = np.asarray(jax.block_until_ready(step(*args)))
 
     assert got.shape == expect.shape
@@ -99,13 +90,12 @@ def test_device_hixf_sharded_dispatch(flat_index):
     the single-device fused step."""
     import jax.numpy as jnp
 
-    from taxor_tpu.device.hixf_search import DeviceHIXF
+    from taxor_jax.device.hixf_search import DeviceHIXF
 
     index, reads = flat_index
     scheme = index.scheme
     mesh = make_mesh(2, 4)
     dhixf = DeviceHIXF(index.hixf, mesh=mesh)
-    dhixf._interpret = True
     assert dhixf.e2e_capable()
 
     L = pad_len_bucket(max(len(r) for r in reads))
@@ -115,25 +105,20 @@ def test_device_hixf_sharded_dispatch(flat_index):
 
     # single-device expectation via the fused step directly
     ixf = index.hixf.ixfs[0]
-    fp = prepare_fingerprints(ixf.fingerprints)
+    fp = pad_fingerprints(ixf.fingerprints)
     starts, ends, ub = index.hixf.runs_of_ixf(0)
-    onehot = np.zeros((fp.shape[1] * 4, starts.shape[0]),
-                      dtype=np.float32)
+    onehot = np.zeros((fp.shape[1], starts.shape[0]), dtype=np.float32)
     for i, (a, b) in enumerate(zip(starts, ends)):
         onehot[a:b, i] = 1.0
     R0 = len(reads)
-    rpad = -R0 % _READ_TILE
-    p1 = np.pad(packed, ((0, rpad), (0, 0)))
-    l1 = np.pad(lengths, (0, rpad)).astype(np.int32)
     expect = np.asarray(fused_e2e_step(
-        jnp.asarray(fp), jnp.asarray(p1), jnp.asarray(l1),
+        jnp.asarray(fp), jnp.asarray(packed),
+        jnp.asarray(lengths.astype(np.int32)),
         jnp.asarray(onehot), jnp.asarray(ub.astype(np.int32)),
         jnp.uint32(ixf.seed >> 32), jnp.uint32(ixf.seed & 0xFFFFFFFF),
         jnp.uint32(ixf.block_length),
         k=scheme.kmer_size, s=scheme.syncmer_size, t=scheme.t_syncmer,
         hcap=hcap, topk=16,
-        bin_tile4=choose_bin_tile4(fp.shape[0], fp.shape[1]),
-        interpret=True,
     ))[:R0]
     assert (vals == expect[:, :16]).all()
     assert (users == expect[:, 16:32]).all()
@@ -145,8 +130,8 @@ def test_device_hixf_sharded_dispatch(flat_index):
 def hier_index(tmp_path_factory):
     import os
 
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.apps.build import BuildConfig, run_build
+    from taxor_jax.io.fastx import read_all
 
     tmp = str(tmp_path_factory.mktemp("sharded_hixf"))
     rng = np.random.default_rng(11)
@@ -170,8 +155,8 @@ def test_sharded_hixf_matches_single_device(hier_index, percentage):
     """Hierarchical bin-sharded fused search (every level's bins sharded
     over the 'bins' axis, descent sums psum'd) must be bit-identical to
     the single-device hierarchical fused step."""
-    from taxor_tpu.device.hixf_search import DeviceHIXF
-    from taxor_tpu.search.thresholds import Thresholder
+    from taxor_jax.device.hixf_search import DeviceHIXF
+    from taxor_jax.search.thresholds import Thresholder
 
     index, reads = hier_index
     scheme = index.scheme
@@ -181,9 +166,8 @@ def test_sharded_hixf_matches_single_device(hier_index, percentage):
     L = pad_len_bucket(max(len(r) for r in reads))
     packed, lengths = pack_reads(reads, L)
 
-    # single-device hierarchical fused step (Pallas interpret on CPU)
-    ref = DeviceHIXF(index.hixf, engine="pallas")
-    ref._interpret = True
+    # single-device hierarchical fused step
+    ref = DeviceHIXF(index.hixf)
     assert ref.e2e_capable(thresholder)
     e_vals, e_users, e_counts, e_nemit, e_hcap = ref.e2e_async(
         packed, lengths, scheme, thresholder)()
@@ -191,7 +175,6 @@ def test_sharded_hixf_matches_single_device(hier_index, percentage):
     # bin-sharded over a (2 reads x 4 bins) mesh
     mesh = make_mesh(2, 4)
     dhixf = DeviceHIXF(index.hixf, mesh=mesh)
-    dhixf._interpret = True
     assert dhixf.e2e_capable(thresholder)
     vals, users, counts, n_emit, hcap = dhixf.e2e_async(
         packed, lengths, scheme, thresholder)()
@@ -210,8 +193,8 @@ def hier_fmh_index(tmp_path_factory):
     paths serve in descend-all chain-min mode."""
     import os
 
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.apps.build import BuildConfig, run_build
+    from taxor_jax.io.fastx import read_all
 
     tmp = str(tmp_path_factory.mktemp("sharded_fmh"))
     rng = np.random.default_rng(13)
@@ -234,8 +217,8 @@ def test_sharded_hixf_descend_all_matches_single_device(hier_fmh_index):
     """VERDICT r3 item 5 (sharded half): scaled hierarchical searches
     must dispatch fused under the mesh, bit-equal to the single-device
     chain-min step."""
-    from taxor_tpu.device.hixf_search import DeviceHIXF
-    from taxor_tpu.search.thresholds import Thresholder
+    from taxor_jax.device.hixf_search import DeviceHIXF
+    from taxor_jax.search.thresholds import Thresholder
 
     index, reads = hier_fmh_index
     scheme = index.scheme
@@ -246,15 +229,13 @@ def test_sharded_hixf_descend_all_matches_single_device(hier_fmh_index):
     L = pad_len_bucket(max(len(r) for r in reads))
     packed, lengths = pack_reads(reads, L)
 
-    ref = DeviceHIXF(index.hixf, engine="pallas")
-    ref._interpret = True
+    ref = DeviceHIXF(index.hixf)
     assert ref.e2e_capable(thresholder)
     e_res = ref.e2e_async(packed, lengths, scheme, thresholder)()
     assert len(e_res) == 6  # chain-min mode
 
     mesh = make_mesh(2, 4)
     dhixf = DeviceHIXF(index.hixf, mesh=mesh)
-    dhixf._interpret = True
     assert dhixf.e2e_capable(thresholder)
     res = dhixf.e2e_async(packed, lengths, scheme, thresholder)()
     assert len(res) == 6
@@ -266,120 +247,13 @@ def test_sharded_hixf_descend_all_matches_single_device(hier_fmh_index):
                                       err_msg=name)
 
 
-@pytest.fixture(scope="module")
-def mixed_engine_index(tmp_path_factory):
-    """Multi-level index whose ROOT table exceeds the (test-shrunk)
-    VMEM budget — the at-scale mixed-engine geometry (ATSCALE r4/r5):
-    root on the XLA row gather, leaf levels on the Pallas kernels."""
-    import os
-
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.io.fastx import read_all
-
-    tmp = str(tmp_path_factory.mktemp("sharded_mixed"))
-    rng = np.random.default_rng(23)
-    # ~3-way merged bins: root ~12k slots, leaves ~250 — the shrunk
-    # VMEM budget (see the test) puts the root over and leaves under,
-    # the same decision landscape the multi-GB at-scale roots hit with
-    # the real 7/14 MB budgets
-    tsv, gdir, genomes = make_ref_set(tmp, rng, n_species=192,
-                                      genome_len=30000)
-    reads_file = make_reads(tmp, rng, genomes, n_reads_per_genome=1,
-                            read_len=800, error_rate=0.03)
-    index = run_build(BuildConfig(
-        input_file=tsv, input_sequence_dir=gdir, output_filename="",
-        kmer_size=16, syncmer_size=8, use_syncmer=True,
-        layout_mode="auto", tmax=64,
-        layout_file=os.path.join(tmp, "b.out"),
-    ))
-    assert len(index.hixf.ixfs) > 1
-    reads = [r.seq for r in read_all(reads_file)]
-    return index, reads
-
-
-def test_sharded_mixed_engine_matches_single_device_and_host(
-        mixed_engine_index, monkeypatch):
-    """VERDICT r4 item 4: the at-scale architecture — a multi-level
-    tree whose root exceeds the VMEM budget (shrunk here so a unit-test
-    index trips the same engine decisions the multi-GB production roots
-    do) — through the SHARDED path on the virtual mesh, byte-equal to
-    the single-device mixed-engine step and to the host oracle."""
-    from taxor_tpu.device import pallas_probe as pp
-    from taxor_tpu.device.hixf_search import DeviceHIXF
-    from taxor_tpu.search.thresholds import Thresholder
-
-    index, reads = mixed_engine_index
-    # shrink the VMEM budgets: the ~12k-slot root (0.8 MB group table)
-    # must exceed them while the ~250-slot leaf groups stay under
-    monkeypatch.setattr(pp, "_FP_VMEM_SINGLE", 512 * 1024)
-    monkeypatch.setattr(pp, "_FP_VMEM_TILE", 256 * 1024)
-    scheme = index.scheme
-    thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
-                                   0.04, -1.0, scheme.use_syncmer)
-
-    L = pad_len_bucket(max(len(r) for r in reads))
-    packed, lengths = pack_reads(reads, L)
-
-    # single-device: the grouped fused path must route the root group
-    # through the XLA row gather (the engine the e2e step actually uses)
-    ref = DeviceHIXF(index.hixf, engine="pallas")
-    ref._interpret = True
-    sd_groups, _ = ref._build_probe_groups(max_group_b4=128,
-                                           p10_ok=False)
-    assert sd_groups[0]["engine"] == "xla"
-    assert any(g["engine"] == "pallas" for g in sd_groups[1:])
-    assert ref.e2e_capable(thresholder)
-    e_vals, e_users, e_counts, e_nemit, e_hcap = ref.e2e_async(
-        packed, lengths, scheme, thresholder)()
-
-    # sharded: the grouped builder must route the root group to 'xla'
-    mesh = make_mesh(2, 4)
-    dhixf = DeviceHIXF(index.hixf, mesh=mesh)
-    dhixf._interpret = True
-    assert dhixf.e2e_capable(thresholder)
-    vals, users, counts, n_emit, hcap = dhixf.e2e_async(
-        packed, lengths, scheme, thresholder)()
-    engines = dhixf._sharded_hixf_state["engines"]
-    assert engines[0] == "xla" and "pallas" in engines[1:]
-
-    assert hcap == e_hcap
-    # raw equality on reads neither path sent to the host fallback: the
-    # tie-rescue bucket is sized per DISPATCH batch (R/64, min 16), so
-    # a read can be rescued on the mesh (8 per-shard buckets) but
-    # sentinel-flagged single-device; both routes end at the host
-    # oracle, which the pairs check below pins for every read
-    ok = (np.asarray(n_emit) <= hcap) & (np.asarray(e_nemit) <= hcap)
-    assert ok.mean() > 0.5  # the fixture is not all-fallback
-    np.testing.assert_array_equal(np.asarray(counts)[ok],
-                                  np.asarray(e_counts)[ok])
-    np.testing.assert_array_equal(np.asarray(vals)[ok],
-                                  np.asarray(e_vals)[ok])
-    np.testing.assert_array_equal(np.asarray(users)[ok],
-                                  np.asarray(e_users)[ok])
-
-    # host-oracle spot check: decoded pairs equal membership() output
-    from taxor_tpu.search.pipeline import _pairs_from_e2e
-    from taxor_tpu.hash.schemes import search_hashes
-
-    dfs_rank = index.hixf.user_bin_dfs_order()
-    pairs, hcs = _pairs_from_e2e(
-        np.asarray(vals), np.asarray(users), np.asarray(counts),
-        np.asarray(n_emit), reads, index, scheme, thresholder,
-        dfs_rank, hcap)
-    for r, seq in enumerate(reads):
-        hl = search_hashes([seq], scheme)[0]
-        thr = int(thresholder.get(hl.shape[0], 0.0))
-        want = index.hixf.membership(hl, thr)
-        assert sorted(pairs[r]) == sorted(want), f"read {r}"
-
-
 @pytest.fixture(scope="module", params=["kmer", "scaled"])
 def scheme_index(request, tmp_path_factory):
     """Non-default schemes under a mesh: plain k-mers (the reference's
     DEFAULT scheme, taxor_search.cpp:242-259) and FracMinHash-scaled
     syncmers — both must run the fused sharded path bit-identically."""
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.io.fastx import read_all
+    from taxor_jax.apps.build import BuildConfig, run_build
+    from taxor_jax.io.fastx import read_all
 
     tmp = str(tmp_path_factory.mktemp(f"sharded_{request.param}"))
     rng = np.random.default_rng(5)
@@ -404,8 +278,8 @@ def test_sharded_e2e_nondefault_schemes(scheme_index):
     import jax
     import jax.numpy as jnp
 
-    from taxor_tpu.device.e2e import fused_e2e_step
-    from taxor_tpu.device.hixf_search import _scale_thresh
+    from taxor_jax.device.e2e import fused_e2e_step
+    from taxor_jax.device.hixf_search import _scale_thresh
 
     index, reads = scheme_index
     scheme = index.scheme
@@ -413,11 +287,9 @@ def test_sharded_e2e_nondefault_schemes(scheme_index):
     n_read_shards, n_bin_shards = 2, 4
     mesh = make_mesh(n_read_shards, n_bin_shards)
 
-    fp = prepare_fingerprints(ixf.fingerprints)
-    B4 = 128 * n_bin_shards
-    fp = np.pad(fp, ((0, 0), (0, B4 - fp.shape[1])))
+    fp = pad_fingerprints(ixf.fingerprints, LANE * n_bin_shards)
     starts, ends, users = index.hixf.runs_of_ixf(0)
-    onehot = np.zeros((4 * B4, starts.shape[0]), dtype=np.float32)
+    onehot = np.zeros((fp.shape[1], starts.shape[0]), dtype=np.float32)
     for i, (a, b) in enumerate(zip(starts, ends)):
         onehot[a:b, i] = 1.0
     run_users = users.astype(np.int32)
@@ -425,7 +297,7 @@ def test_sharded_e2e_nondefault_schemes(scheme_index):
     L = pad_len_bucket(max(len(r) for r in reads))
     packed, lengths = pack_reads(reads, L)
     R0 = len(reads)
-    Rpad = -R0 % (n_read_shards * n_bin_shards * _READ_TILE)
+    Rpad = -R0 % (n_read_shards * n_bin_shards * 16)
     packed = np.pad(packed, ((0, Rpad), (0, 0)))
     lengths = np.pad(lengths, (0, Rpad)).astype(np.int32)
     hcap = hash_cap(L) if scheme.use_syncmer else L
@@ -440,10 +312,8 @@ def test_sharded_e2e_nondefault_schemes(scheme_index):
               t=scheme.t_syncmer, hcap=hcap, topk=16,
               scheme_kind=scheme_kind, window=scheme.window_size,
               scale_thresh=_scale_thresh(scheme))
-    expect = np.asarray(fused_e2e_step(
-        *args, bin_tile4=choose_bin_tile4(fp.shape[0], fp.shape[1]),
-        interpret=True, **kw))
-    step = sharded_e2e_fn(mesh, interpret=True, **kw)
+    expect = np.asarray(fused_e2e_step(*args, **kw))
+    step = sharded_e2e_fn(mesh, **kw)
     got = np.asarray(jax.block_until_ready(step(*args)))
     assert got.shape == expect.shape
     assert (got == expect).all()
@@ -453,15 +323,14 @@ def test_pipeline_uses_fused_path_under_mesh_for_kmers(scheme_index):
     """The CLI pipeline must keep the fused engine for the reference's
     default plain-k-mer scheme under a mesh (was gated to the slow
     synchronous traversal)."""
-    from taxor_tpu.device.hixf_search import DeviceHIXF
-    from taxor_tpu.hash import device_syncmer as dsync
-    from taxor_tpu.search.thresholds import Thresholder
+    from taxor_jax.device.hixf_search import DeviceHIXF
+    from taxor_jax.hash import device_syncmer as dsync
+    from taxor_jax.search.thresholds import Thresholder
 
     index, reads = scheme_index
     scheme = index.scheme
     mesh = make_mesh(2, 4)
     dhixf = DeviceHIXF(index.hixf, mesh=mesh)
-    dhixf._interpret = True
     thresholder = Thresholder.make(scheme.kmer_size, scheme.window_size,
                                    0.04, -1.0, scheme.use_syncmer)
     assert dhixf.e2e_capable(thresholder)
@@ -474,3 +343,39 @@ def test_pipeline_uses_fused_path_under_mesh_for_kmers(scheme_index):
     assert vals.shape[0] == len(reads)
     # every read comes from a reference genome; most should hit
     assert (vals[:, 0] > 0).mean() > 0.8
+
+
+@pytest.mark.parametrize("engine,mesh_shape", [("device", None),
+                                               ("sharded", (1, 4)),
+                                               ("sharded", (2, 2))])
+def test_pipeline_host_extraction_route_on_tree(hier_index, tmp_path,
+                                                monkeypatch, engine,
+                                                mesh_shape):
+    """Reads beyond the device extractor's length cap (lowered here to
+    512 b) take host extraction and descend through the tree step from
+    hashes, next to fused reads in the same batch; the TSV matches the
+    host engine byte for byte, on one device and over a mesh."""
+    from taxor_jax.device.hixf_search import DeviceHIXF
+    from taxor_jax.hash import device_syncmer as dsync
+    from taxor_jax.search.pipeline import SearchConfig, search_single
+
+    from .util import write_fasta
+
+    index, reads = hier_index
+    q = str(tmp_path / "q.fasta")
+    write_fasta(q, [(f"r{i}", seq[:400] if i % 2 else seq)
+                    for i, seq in enumerate(reads[:48])])
+    monkeypatch.setattr(dsync, "L_CAP", 512)
+
+    def search(eng, dhixf):
+        rep = str(tmp_path / f"{eng}.tsv")
+        with open(rep, "w") as out:
+            t = search_single(index, q, out, SearchConfig(engine=eng),
+                              dhixf)
+        return open(rep).read(), t.get("routes")
+
+    want, _ = search("host", None)
+    mesh = make_mesh(*mesh_shape) if mesh_shape else None
+    got, routes = search(engine, DeviceHIXF(index.hixf, mesh=mesh))
+    assert routes["host_extraction"] == 24 and routes["fused"] == 24
+    assert got == want

@@ -5,14 +5,14 @@ import jax
 import numpy as np
 import pytest
 
-from taxor_tpu.device.probe import count_xla, pad_fingerprints
-from taxor_tpu.device.sharding import (
+from taxor_jax.device.probe import count_xla, pad_fingerprints
+from taxor_jax.device.sharding import (
     make_mesh,
     shard_ixf,
     sharded_count_fn,
     sharded_search_step_fn,
 )
-from taxor_tpu.ixf.xor_filter import build_ixf, compute_probes
+from taxor_jax.ixf.xor_filter import build_ixf, compute_probes
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ import math
 
 import pytest
 
-from taxor_tpu.search.thresholds import (
+from taxor_jax.search.thresholds import (
     INF_THRESHOLD,
     Thresholder,
     containment_index_ci,

@@ -4,8 +4,8 @@ including the truncation fallback when > k bins qualify."""
 
 import numpy as np
 
-from taxor_tpu.device.pallas_probe import finalize_topk
-from taxor_tpu.search.pipeline import _pairs_from_topk
+from taxor_jax.device.probe import finalize_topk
+from taxor_jax.search.pipeline import _pairs_from_topk
 
 
 def _decode(sums, thresholds, run_users, k):

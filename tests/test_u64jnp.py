@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from taxor_tpu.utils import u64jnp, u64np
+from taxor_jax.utils import u64jnp, u64np
 
 
 def split(x):
@@ -66,13 +66,11 @@ def test_probe_positions_match_host():
         )
         expect_f = u64np.fingerprint8(u64np.mix_split(keys, u64np.XOR_SEED0))
         shi, slo = split(np.uint64(u64np.XOR_SEED0))
-        pos, f4 = u64jnp.probe_positions_and_fprint4(
+        pos, fpr = u64jnp.probe_positions_and_fprint(
             *split(keys), shi, slo, jnp.uint32(bl)
         )
         np.testing.assert_array_equal(np.asarray(pos), expect_pos)
+        assert np.asarray(fpr).dtype == np.uint8
         np.testing.assert_array_equal(
-            np.asarray(f4) & 0xFF, expect_f.astype(np.uint32)
-        )
-        np.testing.assert_array_equal(
-            (np.asarray(f4) >> 24) & 0xFF, expect_f.astype(np.uint32)
+            np.asarray(fpr), expect_f.astype(np.uint8)
         )

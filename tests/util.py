@@ -35,8 +35,9 @@ def write_fasta(path: str, records: list[tuple[str, bytes]]) -> None:
 
 
 def make_ref_set(tmpdir: str, rng, n_species: int = 6,
-                 genome_len: int = 20000):
-    """Creates genome FASTAs + a 6-column taxonomy TSV.
+                 genome_len: int = 20000, genome_lens=None):
+    """Creates genome FASTAs + a 6-column taxonomy TSV.  genome_lens
+    (optional, one length per species) overrides the fixed genome_len.
 
     Returns (taxonomy_tsv_path, genome_dir, genomes dict acc->seq).
     """
@@ -46,7 +47,8 @@ def make_ref_set(tmpdir: str, rng, n_species: int = 6,
     genomes = {}
     for i in range(n_species):
         acc = f"GCF_{i:06d}.1"
-        seq = random_genome(rng, genome_len)
+        seq = random_genome(
+            rng, genome_len if genome_lens is None else int(genome_lens[i]))
         genomes[acc] = seq
         fname = f"{acc}_genomic.fna"
         write_fasta(os.path.join(gdir, fname), [(f"{acc} chromosome", seq)])

@@ -27,10 +27,10 @@ sys.path.insert(0, os.path.join(
 def classify_rows(index, reads_file):
     """read id -> frozenset of (accession, count) emission rows via the
     host oracle engine (bit-equal reference semantics)."""
-    from taxor_tpu.io.fastx import read_all
-    from taxor_tpu.hash.schemes import search_hashes
-    from taxor_tpu.search.pipeline import _read_threshold
-    from taxor_tpu.search.thresholds import Thresholder
+    from taxor_jax.io.fastx import read_all
+    from taxor_jax.hash.schemes import search_hashes
+    from taxor_jax.search.pipeline import _read_threshold
+    from taxor_jax.search.thresholds import Thresholder
 
     scheme = index.scheme
     th = Thresholder.make(scheme.kmer_size, scheme.window_size, 0.04,
@@ -57,7 +57,7 @@ def classify_rows(index, reads_file):
 def main(n_species=100, n_reads=400):
     from util import make_reads, make_ref_set
 
-    from taxor_tpu.apps.build import BuildConfig, run_build
+    from taxor_jax.apps.build import BuildConfig, run_build
 
     tmp = tempfile.mkdtemp(prefix="layout_inv_")
     rng = np.random.default_rng(123)

@@ -43,9 +43,9 @@ def flip_stats(a, b):
 def main(n_species=300, n_reads=900):
     from util import make_reads, make_ref_set
 
-    import taxor_tpu.hixf.build as hb
-    from taxor_tpu.apps.build import BuildConfig, run_build
-    from taxor_tpu.ixf.xor_filter import XOR_SEED0, build_ixf
+    import taxor_jax.hixf.build as hb
+    from taxor_jax.apps.build import BuildConfig, run_build
+    from taxor_jax.ixf.xor_filter import XOR_SEED0, build_ixf
 
     tmp = tempfile.mkdtemp(prefix="seed_inv_")
     rng = np.random.default_rng(123)
